@@ -40,8 +40,8 @@ Usage: python bench_hg.py [ls|cs|ls-paired|cs-paired]
 Env:   SHRIMP_TPU_HG_LEN     total genome bases   (default 3e9)
        SHRIMP_TPU_HG_SHARDS  bins                 (default 4)
        SHRIMP_TPU_BENCH_READS reads               (default 50000)
-First run builds ~13 GB of index cache per bin under
-/tmp/shrimp_bench_cache (sequentially, ~5 min per 750 Mbp bin).
+First run builds ~13 GB of index cache per bin under the checkout's
+.bench_cache/ (sequentially, ~5 min per 750 Mbp bin).
 """
 import json
 import os
@@ -50,7 +50,8 @@ import time
 
 import numpy as np
 
-CACHE = "/tmp/shrimp_bench_cache"
+CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     ".bench_cache")
 HG_LEN = int(float(os.environ.get("SHRIMP_TPU_HG_LEN", "3e9")))
 N_SHARDS = int(os.environ.get("SHRIMP_TPU_HG_SHARDS", "4"))
 N_READS = int(os.environ.get("SHRIMP_TPU_BENCH_READS", "50000"))
@@ -264,19 +265,9 @@ def gen_pairs(mode: str, slen: int):
 def main():
     arg = sys.argv[1] if len(sys.argv) > 1 else "cs"
     assert arg in ("ls", "cs", "ls-paired", "cs-paired")
-    # tuned steady-state config (same sweep as bench_all; env wins)
-    # persistent XLA compile cache: fresh processes otherwise pay
-    # minutes of Mosaic/XLA compiles before the first mapped read
-    import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/shrimp_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
     os.environ.setdefault("SHRIMP_TPU_PIPELINE_LANES", "32")
     paired = arg.endswith("-paired")
     mode = arg.split("-")[0]
-    if os.environ.get("JAX_PLATFORMS") == "cpu":
-        import jax
-        jax.config.update("jax_platforms", "cpu")
     slen = HG_LEN // N_SHARDS
 
     # offline steps (cached): split-db bins + project-db indexes

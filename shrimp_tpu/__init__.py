@@ -1,17 +1,16 @@
-"""shrimp-tpu: a TPU-native short-read mapper with SHRiMP2's capabilities."""
+"""shrimp-tpu: a short-read mapper with SHRiMP2's capabilities, on JAX."""
 import os
 
-try:
-    import jax
+import jax
 
-    # Persistent compilation cache: the TPU backend's compile times are
-    # heavy-tailed, so pay them once per kernel shape across processes.
-    _cache = os.environ.get("SHRIMP_TPU_COMPILATION_CACHE",
-                            os.path.expanduser("~/.cache/shrimp_tpu_xla"))
-    if _cache:
-        os.makedirs(_cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", _cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-except Exception:  # pragma: no cover - jax config API drift
-    pass
+# Persistent compilation cache: pay each kernel shape's compile once
+# across processes. JAX_COMPILATION_CACHE_DIR, where set, names the
+# directory and JAX reads it itself; otherwise the cache lives in the
+# checkout, at a fixed path so that later runs find it.
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update(
+        "jax_compilation_cache_dir",
+        os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), ".jax_cache"))
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)

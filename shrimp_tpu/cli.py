@@ -803,7 +803,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                                       else sys.argv[1:]))
     ap = argparse.ArgumentParser(
         prog="shrimp_tpu",
-        description="TPU-native short-read mapper (SHRiMP2 capabilities)")
+        description="short-read mapper on JAX (SHRiMP2 capabilities)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p_idx = sub.add_parser("index", help="build and save a genome index")

@@ -4,7 +4,7 @@ Where candidates.py mirrors SHRiMP2 one read at a time, this module runs an
 entire same-length read batch through kmer lookup, the region-count
 prefilter, anchor collapse, and window generation as flat numpy arrays with
 (read, strand) owner segments — the array-programming layout that feeds the
-TPU kernels without per-read python overhead.
+device kernels without per-read python overhead.
 
 Semantics are identical to candidates.py (verified by tests) and hence to:
 - read_get_mapidxs         gmapper/mapping.c:37-115

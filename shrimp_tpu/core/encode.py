@@ -1,7 +1,7 @@
 """Sequence encoding: char <-> 4-bit code arrays, revcomp, colour space.
 
 Unlike SHRiMP2's 2-bases-per-byte bitfields (common/util.h:41), we keep one
-4-bit code per byte (uint8 numpy array): gathers on TPU/host are cheaper than
+4-bit code per byte (uint8 numpy array): gathers on device/host are cheaper than
 bit twiddling and memory is not the bottleneck at these genome sizes.
 
 Behavioral reference:

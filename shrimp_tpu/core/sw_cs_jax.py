@@ -1,4 +1,4 @@
-"""TPU (JAX) colour-space 4-layer full SW + on-device traceback.
+"""JAX colour-space 4-layer full SW + on-device traceback.
 
 Port of sw_cs_batch.sw_full_cs_batch (itself element-equal to the
 reference kernel): lax.scan over read rows, all planes as [B, 4, G] int32
@@ -345,35 +345,6 @@ def lorder_arr(lorder, per):
     return jnp.asarray(np.repeat(lorder, per).astype(np.int32))
 
 
-@functools.partial(jax.jit, static_argnames=(
-    "match", "mismatch", "a_gap_open", "a_gap_ext", "b_gap_open",
-    "b_gap_ext", "local_alignment", "indel_taboo_len", "interpret"))
-def sw_full_cs_tpu_pallas(genome_ls, glen, qr, rlen, ax, ay, alen, awid,
-                          revcmpl, xover_rows, gx_col, thresh,
-                          *, match: int, mismatch: int, a_gap_open: int,
-                          a_gap_ext: int, b_gap_open: int,
-                          b_gap_ext: int, local_alignment: bool = False,
-                          indel_taboo_len: int = 0,
-                          interpret: bool = False):
-    """sw_full_cs_tpu with the DP on the Mosaic 4-layer kernel
-    (sw_cs_full_pallas) instead of the lax.scan formulation; the shared
-    traceback and packing are identical."""
-    from .sw_cs_full_pallas import sw_full_cs_dp_pallas
-    best, bi_, bj_, bk_, bfrm, bp = sw_full_cs_dp_pallas(
-        genome_ls, glen, qr, rlen, ax, ay, alen, awid, revcmpl,
-        xover_rows, gx_col, match=match, mismatch=mismatch,
-        a_gap_open=a_gap_open, a_gap_ext=a_gap_ext,
-        b_gap_open=b_gap_open, b_gap_ext=b_gap_ext,
-        local_alignment=local_alignment,
-        indel_taboo_len=indel_taboo_len, interpret=interpret)
-    bp_nw = (bp & 31).astype(jnp.uint8)
-    bp_n = ((bp >> 5) & 31).astype(jnp.uint8)
-    bp_w = ((bp >> 10) & 31).astype(jnp.uint8)
-    return _cs_traceback(genome_ls.astype(jnp.int32),
-                         qr.astype(jnp.int32), best, bi_, bj_, bk_,
-                         bfrm, bp_nw, bp_n, bp_w, thresh)
-
-
 def sw_full_cs_dispatch(genome_ls, glen, colours, rlen, initbp,
                         ax, ay, alen, awid, revcmpl, xover_rows, thresh,
                         *, match, mismatch, a_gap_open, a_gap_ext,
@@ -381,19 +352,14 @@ def sw_full_cs_dispatch(genome_ls, glen, colours, rlen, initbp,
                         indel_taboo_len=0, device=None):
     """Asynchronously launch the CS full-SW chunk; returns opaque state
     for sw_full_cs_finish.  Splitting dispatch from the fetch lets the
-    caller queue every chunk before blocking once — through a
-    high-latency device link the serial launch+fetch per chunk was the
-    dominant cost of colour-space pass2."""
+    caller queue every chunk before blocking once instead of paying a
+    launch+fetch round trip per chunk."""
     from .sw_cs_batch import cs_layers_batch
-    from .sw_cs_full_pallas import pallas_cs_full_ok
-    B, G = genome_ls.shape
     R = colours.shape[1]
     qr = cs_layers_batch(np.asarray(colours, np.uint8),
                          np.asarray(initbp, np.int64))
-    base = (sw_full_cs_tpu_pallas if pallas_cs_full_ok(B, R, G)
-            else sw_full_cs_tpu)
     kern = functools.partial(
-        base, match=match, mismatch=mismatch,
+        sw_full_cs_tpu, match=match, mismatch=mismatch,
         a_gap_open=a_gap_open, a_gap_ext=a_gap_ext, b_gap_open=b_gap_open,
         b_gap_ext=b_gap_ext, local_alignment=bool(local_alignment),
         indel_taboo_len=int(indel_taboo_len))
@@ -449,7 +415,7 @@ def sw_full_cs_batch_jax(*args, **kw):
 @functools.partial(jax.jit, static_argnames=(
     "G", "xover", "match", "mismatch", "a_gap_open", "a_gap_ext",
     "b_gap_open", "b_gap_ext", "local_alignment", "indel_taboo_len",
-    "use_pallas", "use_vec_pallas", "interpret", "phase"))
+    "vec_kernel", "phase"))
 def sw_vec_cs_full_from_index(cs_codes, cs_codes_rc, ls_codes, ls_codes_rc,
                               args, rtab, qr_tab, xover_tab,
                               cs_cat=None, ls_cat=None,
@@ -459,9 +425,7 @@ def sw_vec_cs_full_from_index(cs_codes, cs_codes_rc, ls_codes, ls_codes_rc,
                               b_gap_ext: int,
                               local_alignment: bool = False,
                               indel_taboo_len: int = 0,
-                              use_pallas: bool = False,
-                              use_vec_pallas: bool = False,
-                              interpret: bool = False,
+                              vec_kernel: str,
                               phase: str = "fused"):
     """Fused colour-space filter2 + speculative filter3 against the
     DEVICE-RESIDENT genome planes: one launch per chunk runs the CS
@@ -484,7 +448,7 @@ def sw_vec_cs_full_from_index(cs_codes, cs_codes_rc, ls_codes, ls_codes_rc,
 
     `phase` (static) picks the launch shape: "fused" computes both
     halves (one round trip, ~4-5x the vec cells — right when candidate
-    density is low and the link RTT dominates); "vec" returns only
+    density is low); "vec" returns only
     (vec_scores,); "full" returns only (packed, steps_rev). The split
     phases power the two-phase dispatch at hg-scale candidate density
     (tens of windows/read, few pass1 survivors) where speculation
@@ -492,9 +456,9 @@ def sw_vec_cs_full_from_index(cs_codes, cs_codes_rc, ls_codes, ls_codes_rc,
     Per-row results are independent of chunk composition, so fused and
     two-phase produce bit-identical selected alignments.
     """
-    from . import sw_jax
     from .. import constants as C
-    from .sw_pallas import TILE, sw_vector_batch_pallas
+    from .sw_jax import fast_window_gather
+    from .sw_pallas import sw_vector
     B = args.shape[0]
     R = rtab.shape[1]
     gstart, glen = args[:, 0], args[:, 1]
@@ -506,13 +470,10 @@ def sw_vec_cs_full_from_index(cs_codes, cs_codes_rc, ls_codes, ls_codes_rc,
     thresh = args[:, 10]
     initbp = args[:, 11]
 
-    from .sw_jax import fast_window_gather
-    gwin_cs = lswin = None
-    if G % 4 == 0:
-        gwin_cs = fast_window_gather(cs_codes, cs_codes_rc, gstart,
-                                     eff_rc, G, cat_words=cs_cat)
-        lswin = fast_window_gather(ls_codes, ls_codes_rc, gstart,
-                                   eff_rc, G, cat_words=ls_cat)
+    gwin_cs = fast_window_gather(cs_codes, cs_codes_rc, gstart, eff_rc,
+                                 G, cat_words=cs_cat)
+    lswin = fast_window_gather(ls_codes, ls_codes_rc, gstart, eff_rc, G,
+                               cat_words=ls_cat)
     if gwin_cs is None or lswin is None:
         jidx = jnp.arange(G, dtype=jnp.int32)[None, :]
         pos = jnp.clip(gstart[:, None] + jidx, 0, cs_codes.shape[0] - 1)
@@ -530,29 +491,19 @@ def sw_vec_cs_full_from_index(cs_codes, cs_codes_rc, ls_codes, ls_codes_rc,
         vec_kw = dict(match=match, mismatch=match + xover,
                       a_gap_open=a_gap_open, a_gap_ext=a_gap_ext,
                       b_gap_open=b_gap_open, b_gap_ext=b_gap_ext)
-        if use_vec_pallas and B % TILE == 0:
-            vec = sw_vector_batch_pallas.__wrapped__(
-                gwin_cs, glen, rwin, rlen, g_row0, cs_mode=True,
-                **vec_kw)
-        else:
-            vec = sw_jax.sw_vector_batch.__wrapped__(
-                gwin_cs, glen, rwin, rlen, g_row0, cs_mode=True,
-                **vec_kw)
+        vec = sw_vector(gwin_cs, glen, rwin, rlen, g_row0,
+                        vec_kernel=vec_kernel, cs_mode=True, **vec_kw)
         if phase == "vec":
             return (vec,)
 
     qr = qr_tab[owner]                       # [B, 4, R]
     xover_rows = xover_tab[owner].astype(jnp.int32)
     gx_col = jnp.full((B,), xover, jnp.int32)
-    full = (sw_full_cs_tpu_pallas.__wrapped__ if use_pallas
-            else sw_full_cs_tpu.__wrapped__)
     full_kw = dict(match=match, mismatch=mismatch, a_gap_open=a_gap_open,
                    a_gap_ext=a_gap_ext, b_gap_open=b_gap_open,
                    b_gap_ext=b_gap_ext, local_alignment=local_alignment,
                    indel_taboo_len=indel_taboo_len)
-    if use_pallas:
-        full_kw["interpret"] = interpret
-    packed, steps_rev = full(
+    packed, steps_rev = sw_full_cs_tpu.__wrapped__(
         lswin.astype(jnp.uint8), glen, qr, rlen, rx, ry,
         jnp.maximum(rl, 1), jnp.maximum(rw, 1), rev, xover_rows, gx_col,
         thresh, **full_kw)

@@ -1,24 +1,25 @@
-"""Pallas TPU kernel for the vector Smith-Waterman filter (filter 2).
+"""Pallas Triton kernel for the vector Smith-Waterman filter (filter 2).
 
 The reference's hottest loop is an SSE2 anti-diagonal wavefront scoring 8
-read rows at a time (common/sw-vector.c:68-377). The TPU-native
-formulation instead uses inter-task parallelism: every VPU lane scores an
-independent (genome window, read) pair, so each whole-genome-row update is
-a [G, 8, 128] vector op advancing G*1024 DP cells at once with no
-wavefront shuffles at all.
+read rows at a time (common/sw-vector.c:68-377). On the GPU the kernel
+uses inter-task parallelism instead: every lane of a program scores one
+independent (genome window, read) pair, so the DP needs no shuffles and
+no intra-row gap resolution at all.
 
-The intra-row E-gap chain (E[j] = max(H[j-1]-open, E[j-1]-ext)) is the
-only sequential dependency along j. It is resolved without a scan:
-because open+extend >= extend, a gap re-opened from a cell whose value
-came from E can never beat simply extending, so E computed from
-H0 = max(0, diag+s, F) (the no-E row value) equals the true E. With a
-uniform extend cost that is a running max of H0[k] + k*ext — log2(G)
-shift-and-max doubling steps — and H = max(H0, E). Scores are therefore
-bit-equal to sw_jax.sw_vector_batch (itself fuzz-verified against the
-reference object code): local affine SW where gap-open charges
-open+extend, H clamped at 0, invalid cells (i >= rlen, j >= glen)
-contribute 0, and colour-space mode scores read row 0 against `g_row0` =
-lstocs(genome letters, initbp) (sw-vector.c:108-146).
+A program owns BLOCK pairs. It walks the genome columns j in a loop and
+the read rows i unrolled inside it, so the previous column's H and E of
+every row stay in registers and the F (vertical gap) chain is the
+unrolled row order itself. Reads longer than STRIP_MAX rows run as
+several strips; between strips the last row's H and F of every column
+go through a small device buffer that the program owns.
+
+Scores are bit-equal to sw_jax.sw_vector_batch: local affine SW where
+gap-open charges open+extend, H clamped at 0, only cells with
+i < rlen and j < glen count towards the best score, and colour-space
+mode scores read row 0 against `g_row0` = lstocs(genome letters,
+initbp) (sw-vector.c:108-146). A cell outside that rectangle only feeds
+cells further down or right, which are outside it too, so the kernel
+masks the best-score update alone.
 """
 from __future__ import annotations
 
@@ -26,86 +27,88 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
+
+from .. import backend
 
 NEG = -(2 ** 30)     # plain int: jnp scalars would be captured kernel consts
-FILL = -(2 ** 28)    # shift fill for the cummax; stays clear of overflow
 
-TILE = 1024          # pairs per grid step = 8 sublanes x 128 lanes
-_SUB, _LANE = 8, 128
-
-
-def pallas_vec_ok(B: int, G: int) -> bool:
-    """Shape/backend gate for the VEC-ONLY Mosaic kernel (two-phase
-    phase A): tile-divisible batch and a VMEM-sized genome block. The
-    full-kernel gate (sw_full_pallas.pallas_full_ok) also bounds the
-    backpointer tensor, which the vec phase never materializes — huge
-    single-launch row counts are exactly the point of phase A."""
-    import jax
-    try:
-        if jax.default_backend() in ("cpu",):
-            return False
-    except Exception:  # pragma: no cover
-        return False
-    return B % TILE == 0 and G <= 256
+BLOCK = 128          # pairs per program: one per thread at NUM_WARPS=4
+NUM_WARPS = 4
+STRIP_MAX = 48       # read rows unrolled per strip (registers per thread)
 
 
-def _kernel(g_ref, r_ref, g0_ref, glen_ref, rlen_ref, out_ref, h_scr,
-            f_scr, *, G, R, m, mm, goa, gea, gob, geb, cs_mode):
-    glen = glen_ref[...].reshape(_SUB, _LANE)
-    rlen = rlen_ref[...].reshape(_SUB, _LANE)
-    # derive loop-carry inits from loaded data: pure splat constants get
-    # a "replicated" Mosaic layout that cannot be a fori_loop carry
-    zeros = jnp.minimum(rlen, 0)     # == 0, but not foldable to a splat
-    g = g_ref[...].reshape(G, _SUB, _LANE)
+def _strips(R: int):
+    """Split rows [0, R) into near-equal strips of at most STRIP_MAX."""
+    n = -(-R // STRIP_MAX)
+    bounds = [R * k // n for k in range(n + 1)]
+    return tuple(zip(bounds[:-1], bounds[1:]))
 
-    jidx = jax.lax.broadcasted_iota(jnp.int32, (G, _SUB, _LANE), 0)
-    jvalid = jidx < glen[None]                      # [G, 8, 128]
-    jg = jidx * gea                                  # j * extend cost
+
+def _kernel(*refs, G, strips, m, mm, goa, gea, gob, geb, cs_mode, blk,
+            barrier):
     if cs_mode:
-        g0 = g0_ref[...].reshape(G, _SUB, _LANE)
+        g_ref, r_ref, g0_ref, glen_ref, rlen_ref, out_ref, *buf = refs
+    else:
+        g_ref, r_ref, glen_ref, rlen_ref, out_ref, *buf = refs
+        g0_ref = None
+    lanes = pl.ds(pl.program_id(0) * blk, blk)
+    glen = glen_ref[lanes]
+    rlen = rlen_ref[lanes]
+    zero = jnp.zeros((blk,), jnp.int32)
+    best = zero
 
-    # row -1: H = 0 (F[-1] = NEG never matters: F[0] <= H[-1]-gob < 0 and
-    # H0 row 0 clamps at 0, matching the masked recurrence of sw_jax)
-    h_scr[:] = jnp.zeros((G + 1, _SUB, _LANE), jnp.int32)
-    f_scr[:] = jnp.full((G, _SUB, _LANE), NEG, jnp.int32)
+    for s, (i0, i1) in enumerate(strips):
+        rows = range(i0, i1)
+        rch = [r_ref[i, lanes].astype(jnp.int32) for i in rows]
+        rvalid = [i < rlen for i in rows]
 
-    def row_body(i, best):
-        rch = r_ref[0, pl.ds(i, 1)].reshape(_SUB, _LANE)
-        rvalid = i < rlen                            # [8, 128]
-        hp = h_scr[pl.ds(1, G)]                      # H[i-1][0..G-1]
-        h_diag = h_scr[pl.ds(0, G)]                  # H[i-1][-1..G-2]
-        s = jnp.where(g == rch[None], m, mm)
-        if cs_mode:
-            s0 = jnp.where(g0 == rch[None], m, mm)
-            s = jnp.where(i == 0, s0, s)
-        f = jnp.maximum(hp - gob, f_scr[...] - geb)
-        h0 = jnp.maximum(jnp.maximum(0, h_diag + s), f)
-        valid = rvalid[None] & jvalid
-        h0 = jnp.where(valid, h0, 0)
-        f = jnp.where(valid, f, NEG)
-        # E chain: cummax of (h0[k] + k*gea) over k <= j-1
-        c = h0 + jg
-        k = 1
-        while k < G:
-            shifted = jnp.concatenate(
-                [jnp.full((k, _SUB, _LANE), FILL, jnp.int32), c[:-k]],
-                axis=0)
-            c = jnp.maximum(c, shifted)
-            k *= 2
-        cs_prev = jnp.concatenate(
-            [jnp.full((1, _SUB, _LANE), FILL, jnp.int32), c[:-1]], axis=0)
-        e = cs_prev - (goa - gea) - jg               # C[j-1] - goa - (j-1)e
-        h = jnp.maximum(h0, jnp.where(valid, e, NEG))
-        best = jnp.maximum(best, jnp.max(h, axis=0))
-        h_scr[pl.ds(1, G)] = h
-        f_scr[...] = f
-        return best
+        def column(j, carry, s=s, rows=rows, rch=rch, rvalid=rvalid):
+            hp, ep, htop, best = carry
+            gch = g_ref[j, lanes].astype(jnp.int32)
+            if s == 0:
+                hup, fup = zero, None          # row -1: H = 0, F = NEG
+            else:
+                hb, fb = buf[2 * ((s - 1) % 2):2 * ((s - 1) % 2) + 2]
+                hup, fup = hb[j, lanes], fb[j, lanes]
+            ntop = hup                        # H[i0-1][j]: next diag
+            diag = htop                       # H[i0-1][j-1]
+            hs, es = [], []
+            colmax = zero
+            for t, i in enumerate(rows):
+                if cs_mode and i == 0:
+                    g0 = g0_ref[j, lanes].astype(jnp.int32)
+                    sc = jnp.where(g0 == rch[t], m, mm)
+                else:
+                    sc = jnp.where(gch == rch[t], m, mm)
+                e = jnp.maximum(hp[t] - goa, ep[t] - gea)
+                if fup is None:
+                    f = jnp.full((blk,), NEG, jnp.int32)
+                else:
+                    f = jnp.maximum(hup - gob, fup - geb)
+                h = jnp.maximum(jnp.maximum(diag + sc, 0),
+                                jnp.maximum(e, f))
+                colmax = jnp.maximum(colmax, jnp.where(rvalid[t], h, 0))
+                diag = hp[t]
+                hup, fup = h, f
+                hs.append(h)
+                es.append(e)
+            if s + 1 < len(strips):
+                hb, fb = buf[2 * (s % 2):2 * (s % 2) + 2]
+                hb[j, lanes] = hup
+                fb[j, lanes] = fup
+            best = jnp.maximum(best, jnp.where(j < glen, colmax, 0))
+            return tuple(hs), tuple(es), ntop, best
 
-    best = jax.lax.fori_loop(0, R, row_body, zeros)
-    out_ref[...] = best.reshape(1, _SUB, _LANE)
+        n = i1 - i0
+        init = (tuple(zero for _ in range(n)),
+                tuple(jnp.full((blk,), NEG, jnp.int32) for _ in range(n)),
+                zero, best)
+        _, _, _, best = jax.lax.fori_loop(0, G, column, init)
+        if barrier and s + 1 < len(strips):
+            pltriton.debug_barrier()   # strip rows stored, then read
+    out_ref[lanes] = best
 
 
 @functools.partial(jax.jit, static_argnames=(
@@ -119,78 +122,84 @@ def sw_vector_batch_pallas(genome: jnp.ndarray, glen: jnp.ndarray,
                            b_gap_open: int, b_gap_ext: int,
                            cs_mode: bool = False,
                            interpret: bool = False) -> jnp.ndarray:
-    """Drop-in for sw_jax.sw_vector_batch; B must be a multiple of 1024.
-    `interpret=True` runs the kernel on the Pallas interpreter so the
-    hottest Mosaic kernel stays covered on CPU-only CI."""
+    """Drop-in for sw_jax.sw_vector_batch on the GPU. Any batch size:
+    the batch pads to a whole number of BLOCK-pair programs with empty
+    pairs (glen = rlen = 0, score 0). With `interpret` set the kernel
+    runs on the Pallas interpreter, which is how the CPU tests reach
+    it."""
     B, G = genome.shape
     R = read.shape[1]
-    assert B % TILE == 0, B
-    nb = B // TILE
+    Bp = -(-B // BLOCK) * BLOCK
 
-    def tiles(x, inner):
-        # [B, L] -> [nb, L, 8, 128]: batch to (sublane, lane)
-        return x.astype(jnp.int32).reshape(
-            nb, _SUB, _LANE, inner).transpose(0, 3, 1, 2)
+    def cols(x):
+        # [B, L] -> [L, Bp]: a program's lanes read contiguous bytes
+        return jnp.pad(x, ((0, Bp - B), (0, 0))).T
 
-    gT = tiles(genome, G)
-    rT = tiles(read, R)
-    g0T = (tiles(g_row0, G) if cs_mode
-           else jnp.zeros((nb, 1, _SUB, _LANE), jnp.int32))
-    glenT = glen.reshape(nb, 1, _SUB, _LANE)
-    rlenT = rlen.reshape(nb, 1, _SUB, _LANE)
-
+    strips = _strips(R)
+    args = [cols(genome), cols(read)]
+    if cs_mode:
+        args.append(cols(g_row0))
+    args += [jnp.pad(glen.astype(jnp.int32), (0, Bp - B)),
+             jnp.pad(rlen.astype(jnp.int32), (0, Bp - B))]
+    out_shape = [jax.ShapeDtypeStruct((Bp,), jnp.int32)]
+    if len(strips) > 1:
+        # strip-boundary H and F rows, double-buffered between strips
+        out_shape += [jax.ShapeDtypeStruct((G, Bp), jnp.int32)] * 4
     kern = functools.partial(
-        _kernel, G=G, R=R,
+        _kernel, G=G, strips=strips,
         m=int(match), mm=int(mismatch),
         goa=int(-(a_gap_open) + -(a_gap_ext)),
         gea=int(-(a_gap_ext)),
         gob=int(-(b_gap_open) + -(b_gap_ext)),
         geb=int(-(b_gap_ext)),
-        cs_mode=cs_mode)
-
-    def bspec(shape):
-        return pl.BlockSpec((1,) + shape, lambda i: (i,) + (0,) * len(shape),
-                            memory_space=pltpu.VMEM)
-
-    out = pl.pallas_call(
+        cs_mode=cs_mode, blk=BLOCK, barrier=not interpret)
+    outs = pl.pallas_call(
         kern,
-        grid=(nb,),
-        in_specs=[bspec((G, _SUB, _LANE)), bspec((R, _SUB, _LANE)),
-                  bspec((g0T.shape[1], _SUB, _LANE)),
-                  bspec((1, _SUB, _LANE)), bspec((1, _SUB, _LANE))],
-        out_specs=bspec((_SUB, _LANE)),
-        out_shape=jax.ShapeDtypeStruct((nb, _SUB, _LANE), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((G + 1, _SUB, _LANE), jnp.int32),
-                        pltpu.VMEM((G, _SUB, _LANE), jnp.int32)],
+        grid=(Bp // BLOCK,),
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS,
+                                                num_stages=1),
         interpret=interpret,
-    )(gT, rT, g0T, glenT, rlenT)
-    return out.reshape(B)
+        name="sw_vector_triton",
+    )(*args)
+    return outs[0][:B]
+
+
+def sw_vector(gwin, glen, rwin, rlen, g_row0=None, *, vec_kernel: str,
+              cs_mode: bool = False, **kw):
+    """Vector SW scores by the kernel `vec_kernel` names (see backend);
+    call inside a jitted function."""
+    if vec_kernel == backend.VEC_TRITON:
+        return sw_vector_batch_pallas.__wrapped__(
+            gwin, glen, rwin, rlen, g_row0, cs_mode=cs_mode, **kw)
+    from . import sw_jax
+    return sw_jax.sw_vector_batch.__wrapped__(
+        gwin, glen, rwin, rlen, g_row0, cs_mode=cs_mode, **kw)
 
 
 @functools.partial(jax.jit, static_argnames=(
     "G", "match", "mismatch", "a_gap_open", "a_gap_ext", "b_gap_open",
-    "b_gap_ext", "use_pallas"))
+    "b_gap_ext", "vec_kernel"))
 def sw_vector_ls_from_index(codes, gstart, glen, rtab, owner, rlen,
                             *, G: int, match: int, mismatch: int,
                             a_gap_open: int, a_gap_ext: int,
                             b_gap_open: int, b_gap_ext: int,
-                            use_pallas: bool) -> jnp.ndarray:
+                            vec_kernel: str) -> jnp.ndarray:
     """Letter-space vector SW against the DEVICE-RESIDENT genome.
 
     Instead of gathering [B, G] genome windows on the host and shipping
     them per launch, the packed genome `codes` lives on the device once
     and only window start offsets (`gstart`, absolute) cross the host
-    boundary — several-fold less PCIe/tunnel traffic per launch. Read
-    rows are gathered on-device too when `owner` is given: `rtab` is
-    the per-batch read table (upload it once with device_put) and
-    `owner` the per-candidate row index; with owner=None, `rtab` is
-    already the per-candidate [B, R] row matrix. All argument shapes
-    are launch-size constants so exactly one compile per (G, R) bucket
-    happens. Windows crossing the genome end clip to the last base;
-    `glen` masks them (same semantics as mapper._gather_rows).
+    boundary. Read rows are gathered on-device too when `owner` is
+    given: `rtab` is the per-batch read table (upload it once with
+    device_put) and `owner` the per-candidate row index; with
+    owner=None, `rtab` is already the per-candidate [B, R] row matrix.
+    All argument shapes are launch-size constants so exactly one compile
+    per (G, R) bucket happens. Windows crossing the genome end clip to
+    the last base; `glen` masks them (same semantics as
+    mapper._gather_rows).
     """
-    from . import sw_jax
-    B = gstart.shape[0]
     jidx = jnp.arange(G, dtype=jnp.int32)[None, :]
     pos = jnp.clip(gstart.astype(jnp.int32)[:, None] + jidx, 0,
                    codes.shape[0] - 1)
@@ -198,24 +207,21 @@ def sw_vector_ls_from_index(codes, gstart, glen, rtab, owner, rlen,
     rwin = (rtab if owner is None
             else rtab[jnp.clip(owner.astype(jnp.int32), 0,
                                rtab.shape[0] - 1)])
-    kw = dict(match=match, mismatch=mismatch, a_gap_open=a_gap_open,
-              a_gap_ext=a_gap_ext, b_gap_open=b_gap_open,
-              b_gap_ext=b_gap_ext)
-    if use_pallas and B % TILE == 0:
-        return sw_vector_batch_pallas.__wrapped__(gwin, glen, rwin, rlen,
-                                                  **kw)
-    return sw_jax.sw_vector_batch.__wrapped__(gwin, glen, rwin, rlen, **kw)
+    return sw_vector(gwin, glen, rwin, rlen, vec_kernel=vec_kernel,
+                     match=match, mismatch=mismatch, a_gap_open=a_gap_open,
+                     a_gap_ext=a_gap_ext, b_gap_open=b_gap_open,
+                     b_gap_ext=b_gap_ext)
 
 
 @functools.partial(jax.jit, static_argnames=(
     "G", "match", "mismatch", "a_gap_open", "a_gap_ext", "b_gap_open",
-    "b_gap_ext", "use_pallas"))
+    "b_gap_ext", "vec_kernel"))
 def sw_vector_cs_from_index(cs_codes, cs_codes_rc, ls_codes, ls_codes_rc,
                             gstart, glen, eff_rc, rtab, owner, rlen, initbp,
                             *, G: int, match: int, mismatch: int,
                             a_gap_open: int, a_gap_ext: int,
                             b_gap_open: int, b_gap_ext: int,
-                            use_pallas: bool) -> jnp.ndarray:
+                            vec_kernel: str) -> jnp.ndarray:
     """Colour-space vector SW against the DEVICE-RESIDENT genome planes.
 
     The CS vector SW scores the colour read against the genome's colour
@@ -227,9 +233,7 @@ def sw_vector_cs_from_index(cs_codes, cs_codes_rc, ls_codes, ls_codes_rc,
     index and `initbp` cross the host boundary. g_row0 is computed
     on-device as COLOUR_MAT[genome_letter, initbp].
     """
-    from . import sw_jax
     from .. import constants as C
-    B = gstart.shape[0]
     jidx = jnp.arange(G, dtype=jnp.int32)[None, :]
     pos = jnp.clip(gstart.astype(jnp.int32)[:, None] + jidx, 0,
                    cs_codes.shape[0] - 1)
@@ -240,19 +244,7 @@ def sw_vector_cs_from_index(cs_codes, cs_codes_rc, ls_codes, ls_codes_rc,
     g_row0 = cmat[lswin.astype(jnp.int32) * 16
                   + initbp.astype(jnp.int32)[:, None]]
     rwin = rtab[jnp.clip(owner.astype(jnp.int32), 0, rtab.shape[0] - 1)]
-    kw = dict(match=match, mismatch=mismatch, a_gap_open=a_gap_open,
-              a_gap_ext=a_gap_ext, b_gap_open=b_gap_open,
-              b_gap_ext=b_gap_ext)
-    if use_pallas and B % TILE == 0:
-        return sw_vector_batch_pallas.__wrapped__(gwin, glen, rwin, rlen,
-                                                  g_row0, cs_mode=True, **kw)
-    return sw_jax.sw_vector_batch.__wrapped__(gwin, glen, rwin, rlen,
-                                              g_row0, cs_mode=True, **kw)
-
-
-def pallas_available() -> bool:
-    """True when the default backend can run the Mosaic kernels."""
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except Exception:  # pragma: no cover
-        return False
+    return sw_vector(gwin, glen, rwin, rlen, g_row0, vec_kernel=vec_kernel,
+                     cs_mode=True, match=match, mismatch=mismatch,
+                     a_gap_open=a_gap_open, a_gap_ext=a_gap_ext,
+                     b_gap_open=b_gap_open, b_gap_ext=b_gap_ext)

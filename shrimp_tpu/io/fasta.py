@@ -2,7 +2,7 @@
 
 Behavioral reference: common/fasta.c (fasta_open autodetect at :96-125,
 record parsing fasta_get_next_read_with_range). Host-side input pipeline
-for the TPU mapper; parsing stays simple and streaming.
+for the mapper; parsing stays simple and streaming.
 """
 from __future__ import annotations
 

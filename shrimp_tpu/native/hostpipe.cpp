@@ -310,7 +310,7 @@ struct FRParams {
                                    // recombination of MAPPING_QUALITIES
                                    // Part 1c feeds the rendered MQV)
   // ---- renderer-level flags (output.c:227-774; these must not evict
-  // the device fast path — VERDICT r3 weak #4)
+  // the device fast path)
   const char* rg;                  // "\tRG:Z:<name>" suffix or null
   int32_t rg_len;
   int32_t all_contigs;             // --all-contigs: omit Z fields

@@ -68,8 +68,8 @@ def init_distributed(coordinator: str, num_processes: int,
                      process_id: int,
                      local_device_count: Optional[int] = None):
     """jax.distributed.initialize wrapper. On CPU validation meshes set
-    `local_device_count` to the per-host chip count; on real TPU pods
-    leave it None (the plugin reports the local chips)."""
+    `local_device_count` to the per-host device count; on GPU hosts
+    leave it None (the plugin reports the local cards)."""
     import jax
     if local_device_count is not None:
         jax.config.update("jax_num_cpu_devices", int(local_device_count))
@@ -581,7 +581,7 @@ class _DistCSMixin:
         m.stats.vec_cells += cells
         m.stats.full_invocs += n
         m.stats.full_cells += cells * 4
-        return [(0, n, res)], win, G, False
+        return [(0, n, res)], win, G
 
     def _cs_genome_view(self, rows, ctx):
         """Unpaired: arena over the pass-1-selected jobs only."""
@@ -679,7 +679,6 @@ class DistMapper:
             self.m = PairedMapper(comp, cfg)
         else:
             self.m = Mapper(comp, cfg)
-        self.platform = self.mesh.devices.flat[0].platform
         S = _round_up(
             int(max(np.asarray(m["lengths"], np.int64).sum()
                     for m in shard_meta)) + self.halo, 256)
@@ -726,22 +725,20 @@ class DistMapper:
             return fn
         import jax
         from jax.sharding import NamedSharding, PartitionSpec as P
-        from ..core.sw_full_pallas import pallas_full_ok
+        from .. import backend
         from ..core.sw_jax import sw_vec_full_stats_packed
         kw = dict(kw_key)
-        use_pallas = (self.platform == "tpu"
-                      and pallas_full_ok(Wcap, _round_up(L, 8), G))
-        interpret = self.platform != "tpu"
+        vec_kernel = backend.vec_kernel()
 
         def body(fwd, rc, args, rtab_pk):
             pk3, = sw_vec_full_stats_packed.__wrapped__(
                 fwd[0], rc[0], args[0], rtab_pk, G=G, L=L,
-                local_alignment=False, use_pallas=use_pallas,
-                interpret=interpret, phase="fused", **kw)
+                local_alignment=False, vec_kernel=vec_kernel,
+                phase="fused", **kw)
             # per-shard output: each host fetches only its LOCAL
             # shards' rows and the cross-host merge is a RAGGED host
             # exchange of the valid rows (no O(D * max-per-shard)
-            # padding crosses DCN — VERDICT r3 weak #5)
+            # padding crosses hosts)
             return pk3[None]
 
         fn = jax.jit(
@@ -767,14 +764,10 @@ class DistMapper:
             return fn
         import jax
         from jax.sharding import NamedSharding, PartitionSpec as P
-        from ..core.sw_cs_full_pallas import pallas_cs_full_ok
+        from .. import backend
         from ..core.sw_cs_jax import sw_vec_cs_full_from_index
-        from ..core.sw_pallas import pallas_available
         kw = dict(kw_key)
-        on_tpu = self.platform == "tpu"
-        kw.update(use_pallas=on_tpu and pallas_cs_full_ok(Wcap, R, G),
-                  use_vec_pallas=on_tpu and pallas_available(),
-                  interpret=False, phase="fused", G=G)
+        kw.update(vec_kernel=backend.vec_kernel(), phase="fused", G=G)
 
         def body(p0, p1, p2, p3, args, rtab, qr, xov):
             vec, pk, st = sw_vec_cs_full_from_index.__wrapped__(
@@ -960,8 +953,7 @@ class DistMapper:
 
     def _map_unpaired_cs(self, records: Sequence[SeqRecord],
                          batch_size: int) -> bytes:
-        """Multi-host colour-space unpaired mapping (VERDICT r3 missing
-        #1): per-LOCAL-shard CS filter 1, cross-host descriptor
+        """Multi-host colour-space unpaired mapping: per-LOCAL-shard CS filter 1, cross-host descriptor
         allgather, fused CS launch over the global mesh, owner-host
         window arena for the native post-SW eval — the flagship 36bp-CS
         workload on the flagship distribution tier, byte-identical on

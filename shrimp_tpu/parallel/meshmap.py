@@ -112,7 +112,7 @@ def zpair_collective_body(loc):
 
 def halo_for(cfg: MapperConfig, read_len: Optional[int] = None) -> int:
     """Shard halo derived from the config's maximum window length
-    (VERDICT r2 weak 6: the fixed 2048 halo rejected long-read runs).
+    (a fixed 2048 halo would reject long-read runs).
     Windows gather up to the next power of two of the window length, so
     the halo must cover that."""
     from ..config import abs_or_pct
@@ -363,7 +363,6 @@ class ShardedIndexMapper:
             self.m = PairedMapper(comp, cfg)
         else:
             self.m = Mapper(comp, cfg)
-        self.platform = self.mesh.devices.flat[0].platform
         # per-shard genome planes, padded to a common row length; no
         # cross-shard halo is needed: shards own whole contigs and
         # windows never cross a contig boundary
@@ -766,7 +765,7 @@ def _MeshFastCS(mapper, mm, sharded_index: bool = False,
             m.stats.vec_cells += cells
             m.stats.full_invocs += n
             m.stats.full_cells += cells * 4
-            return [(0, n, res)], win, G, False
+            return [(0, n, res)], win, G
 
     return _Impl(mapper, mm)
 
@@ -799,7 +798,6 @@ class MeshMapper:
             self.m = PairedMapper(index, cfg)
         else:
             self.m = Mapper(index, cfg)
-        self.platform = self.mesh.devices.flat[0].platform
         # range-sharded genome planes with halo: device d holds
         # [d*S, d*S + S + halo) of both the forward and the revcomp
         # plane (windows never span more than halo beyond their start)
@@ -848,18 +846,16 @@ class MeshMapper:
         import jax
         import jax.numpy as jnp
         from jax.sharding import PartitionSpec as P
-        from ..core.sw_full_pallas import pallas_full_ok
+        from .. import backend
         from ..core.sw_jax import sw_vec_full_stats_packed
         kw = dict(kw_key)
-        use_pallas = (self.platform == "tpu"
-                      and pallas_full_ok(Wcap, _round_up(L, 8), G))
-        interpret = self.platform != "tpu"
+        vec_kernel = backend.vec_kernel()
 
         def body(fwd, rc, args, rtab_pk):
             pk3, = sw_vec_full_stats_packed.__wrapped__(
                 fwd[0], rc[0], args[0], rtab_pk, G=G, L=L,
-                local_alignment=False, use_pallas=use_pallas,
-                interpret=interpret, phase="fused", **kw)
+                local_alignment=False, vec_kernel=vec_kernel,
+                phase="fused", **kw)
             return pk3[None]
 
         fn = jax.jit(jax.shard_map(
@@ -879,14 +875,10 @@ class MeshMapper:
             return fn
         import jax
         from jax.sharding import NamedSharding, PartitionSpec as P
-        from ..core.sw_cs_full_pallas import pallas_cs_full_ok
+        from .. import backend
         from ..core.sw_cs_jax import sw_vec_cs_full_from_index
-        from ..core.sw_pallas import pallas_available
         kw = dict(kw_key)
-        on_tpu = self.platform == "tpu"
-        kw.update(use_pallas=on_tpu and pallas_cs_full_ok(Wcap, R, G),
-                  use_vec_pallas=on_tpu and pallas_available(),
-                  interpret=False, phase="fused", G=G)
+        kw.update(vec_kernel=backend.vec_kernel(), phase="fused", G=G)
         D = self.D
 
         def body(p0, p1, p2, p3, args, inv, rtab, qr, xov):

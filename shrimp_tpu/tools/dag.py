@@ -12,7 +12,7 @@ epsilon-pruned DAG), ``dag_get_kmers`` (all k-length consensus strings
 spelled by DAG paths, for seeding), and ``dag_build_alignment`` (local
 genome-vs-DAG DP).  This module mirrors that surface with plain Python
 objects; the component is host-side tooling (per-read graphs of ~100
-nodes), not a TPU compute path.
+nodes), not a device compute path.
 """
 from __future__ import annotations
 

@@ -186,8 +186,7 @@ def _indel_dataset(tmp_path, n_reads=200, seed=4242):
 
 
 def test_extra_sam_fields_byte_identical(tmp_path):
-    """--extra-sam-fields rides the native fast path (VERDICT r4 task
-    #5): ZM/ZR/ZV/ZH/ZE byte-identical to the reference on an
+    """--extra-sam-fields rides the native fast path: ZM/ZR/ZV/ZH/ZE byte-identical to the reference on an
     indel-bearing dataset (forward and reverse-strand edit strings,
     paren groups, deletions, substitution letters)."""
     gpath, rpath = _indel_dataset(tmp_path)

@@ -126,12 +126,11 @@ def test_fastpath_option_variants(tmp_path):
 
 
 def test_fastpath_stats_flow(tmp_path, monkeypatch):
-    """The traceback-free stats flow (Pallas DP-stats kernel +
+    """The traceback-free stats flow (the XLA DP-stats scan +
     closed-form diagonal reconstruction + native host DP for the
     indel/cross-plane minority) is byte-identical to the on-device
     traceback flow."""
     monkeypatch.setenv("SHRIMP_TPU_STATS_FLOW", "1")
-    monkeypatch.setenv("SHRIMP_TPU_PALLAS_INTERPRET", "1")
     idx, reads, _, _ = _build(tmp_path, n_reads=150, seed=3)
     recs = [SeqRecord(n, s) for n, s in reads]
     cfg = MapperConfig()
@@ -139,7 +138,6 @@ def test_fastpath_stats_flow(tmp_path, monkeypatch):
     got = _fast_sam(m, recs)
     assert m.stats.full_host_tb > 0, "indel paths never hit the host DP"
     monkeypatch.delenv("SHRIMP_TPU_STATS_FLOW")
-    monkeypatch.delenv("SHRIMP_TPU_PALLAS_INTERPRET")
     want = _generic_sam(Mapper(idx, cfg), recs)
     assert got == want
 

@@ -379,7 +379,7 @@ def test_flag_matrix_cs_unpaired(cs_dataset, gflags, oflags):
 
 # ===================================================================
 # r3 widening: N/IUPAC contigs, reads with Ns, qv edge cases
-# (VERDICT r2 task 8 — the bit-identity claim must not rest on clean
+# (the bit-identity claim must not rest on clean
 # ACGT-only input; N windows are skipped at index build,
 # genome.c:1145-1147, N read bases never match, and fastq qv handling
 # has its own corner semantics, gmapper.c:440-492)

@@ -1,6 +1,6 @@
 """Memory cap (my-alloc analogue) and the CLI flags that drive it.
 
-Covers VERDICT r2 task 4: --max-mem / --strict-mem wired to
+Covers --max-mem / --strict-mem wired to
 memmodel.init, the -S save-and-exit path, the -L x -S y -z c
 re-checkpoint flow, and the long-form -L seed-subset load
 (gmapper.c:1740, 2846-2857; genome.c:670-831).

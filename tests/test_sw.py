@@ -116,3 +116,27 @@ def test_sw_full_matches_oracle(local, revcmpl):
         assert tb.insertions[b] == res.insertions, b
         assert tb.deletions[b] == res.deletions, b
         assert list(tb.ops[b, :tb.n_ops[b]]) == list(res.ops), b
+
+
+def test_fast_window_gather_needs_whole_words():
+    """The word gather serves G % 4 == 0 only and equals the byte
+    gather there; any other G returns None so callers take the byte
+    path."""
+    import jax.numpy as jnp
+
+    from shrimp_tpu.core.sw_jax import fast_window_gather
+    rng = np.random.default_rng(3)
+    n, B = 5000, 64
+    fwd = rng.integers(0, 4, n).astype(np.uint8)
+    rc = (3 - fwd)[::-1].copy()
+    gstart = rng.integers(0, n, B).astype(np.int32)
+    strand = rng.integers(0, 2, B).astype(np.int32)
+    assert fast_window_gather(jnp.asarray(fwd), jnp.asarray(rc),
+                              jnp.asarray(gstart), jnp.asarray(strand),
+                              30) is None
+    got = np.asarray(fast_window_gather(
+        jnp.asarray(fwd), jnp.asarray(rc), jnp.asarray(gstart),
+        jnp.asarray(strand), 32))
+    pos = np.clip(gstart[:, None] + np.arange(32)[None, :], 0, n - 1)
+    want = np.where(strand[:, None] != 0, rc[pos], fwd[pos])
+    assert np.array_equal(got, want)
